@@ -3,7 +3,7 @@
 
 Python re-design of the reference's scripts/analyze_results.cpp (1386 LoC
 of hand-rolled parsing): reads a directory tree of log files produced by
-``python -m sddmm_tpu.cli`` (or the reference binary — same schema),
+``python -m bsmr_sddmm.cli`` (or the reference binary — same schema),
 computes per-matrix GFLOPS tables and speedups, and writes
 ``results_<K>.csv`` with one row per matrix and one column per tool,
 matching the reference's CSV layout (analyze_results.cpp:789-796).
@@ -23,7 +23,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from sddmm_tpu.utils.logger import parse_log  # noqa: E402
+from bsmr_sddmm.utils.logger import parse_log  # noqa: E402
 
 
 _META_KEYS = ("bsmr_numClusters", "bsmr_numDenseBlock",

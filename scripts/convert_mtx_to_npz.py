@@ -23,7 +23,7 @@ def main(argv=None) -> int:
     p.add_argument("-o", "--output-dir", default="converted_npz")
     args = p.parse_args(argv)
 
-    from sddmm_tpu.data import io
+    from bsmr_sddmm.data import io
 
     paths = [Path(x) for x in args.matrices]
     if args.list_file:

@@ -75,7 +75,7 @@ def fetch_dlmc(out: Path):
 def filter_dir(root: Path, min_dim: int, min_nnz: int, move_to):
     """Keep matrices with m,n >= min_dim and nnz >= min_nnz (reference
     exclude_invalid_dataset.py:46-49)."""
-    from sddmm_tpu.data import io
+    from bsmr_sddmm.data import io
 
     excluded = []
     for path in sorted(root.rglob("*")):
@@ -103,7 +103,7 @@ def filter_dir(root: Path, min_dim: int, min_nnz: int, move_to):
 
 
 def synth(out: Path):
-    from sddmm_tpu.data import generate, io
+    from bsmr_sddmm.data import generate, io
 
     out.mkdir(parents=True, exist_ok=True)
     suite = {

@@ -35,8 +35,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import numpy as np
 
-from sddmm_tpu.data import io
-from sddmm_tpu.data.sparse import COO
+from bsmr_sddmm.data import io
+from bsmr_sddmm.data.sparse import COO
 
 REF_CSV = Path("/root/reference/scripts/results_suiteSparse_dataset"
                "/k128/results_128.csv")
@@ -159,7 +159,8 @@ def main(argv=None) -> int:
         io.save_smtx(path, csr)
         manifest[f"clone_{name}"] = dict(
             rec, clone_class=cls, clone_nnz=csr.nnz,
-            nnz_match=round(csr.nnz / rec["nnz"], 3))
+            nnz_match=round(csr.nnz / rec["nnz"], 3),
+            ref_hardware="RTX 4090, reference")
         print(f"{name}: {cls} m={rec['m']} n={rec['n']} "
               f"nnz {csr.nnz}/{rec['nnz']} "
               f"({csr.nnz / rec['nnz']:.1%}) ref_bsmr="

@@ -22,7 +22,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 def corpus():
     """name -> zero-arg generator, 20+ matrices across regimes."""
-    from sddmm_tpu.data import generate as g
+    from bsmr_sddmm.data import generate as g
     return {
         # fine-grained planted blocks (16x16), density / size spread
         "fineblock_sparse": lambda: g.block_clustered(
@@ -123,7 +123,7 @@ def main(argv=None) -> int:
     p.add_argument("--only", nargs="*", default=None)
     args = p.parse_args(argv)
 
-    from sddmm_tpu.data import io
+    from bsmr_sddmm.data import io
 
     args.outdir.mkdir(parents=True, exist_ok=True)
     for name, gen in corpus().items():

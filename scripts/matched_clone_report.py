@@ -8,7 +8,7 @@ with the run_baselines.py logs measured on this framework, and writes
 results/matched_clones_r5.csv:
 
   name, class, m, n, nnz_ref, nnz_clone, ref_bsmr_gflops_4090,
-  tpu_bsmr_gflops, tpu_csr_gflops, ratio_vs_ref
+  bsmr_gflops, csr_gflops, ratio_vs_ref
 
 Usage:
     python scripts/matched_clone_report.py /tmp/matched_clones \
@@ -26,7 +26,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 def parse_log(path: Path) -> dict:
-    from sddmm_tpu.utils.logger import parse_log as _parse
+    from bsmr_sddmm.utils.logger import parse_log as _parse
     return _parse(path.read_text(),
                   prefer_nonzero=("bsmr_gflops", "csr_gflops"))
 
@@ -57,8 +57,8 @@ def main(argv=None) -> int:
             "class": rec["clone_class"], "m": rec["m"], "n": rec["n"],
             "nnz_ref": rec["nnz"], "nnz_clone": rec["clone_nnz"],
             "ref_bsmr_gflops_4090": rec["ref_bsmr_gflops"],
-            "tpu_bsmr_gflops": round(bsmr, 1),
-            "tpu_csr_gflops": round(csrg, 1),
+            "bsmr_gflops": round(bsmr, 1),
+            "csr_gflops": round(csrg, 1),
             "ratio_vs_ref": round(bsmr / rec["ref_bsmr_gflops"], 3)
             if rec["ref_bsmr_gflops"] else None,
         })
@@ -72,12 +72,12 @@ def main(argv=None) -> int:
         for r in rows:
             f.write(",".join(str(r[c]) for c in cols) + "\n")
     gm = float(np.exp(np.mean(np.log(
-        [max(r["tpu_bsmr_gflops"], 1e-9) for r in rows]))))
+        [max(r["bsmr_gflops"], 1e-9) for r in rows]))))
     gmr = float(np.exp(np.mean(np.log(
         [max(r["ratio_vs_ref"], 1e-9) for r in rows
          if r["ratio_vs_ref"]]))))
     print(f"wrote {args.output} ({len(rows)} clones); "
-          f"geomean tpu_bsmr={gm:.0f} GFLOPS, "
+          f"geomean bsmr={gm:.0f} GFLOPS, "
           f"geomean ratio vs named-reference cells={gmr:.3f}")
     return 0
 

@@ -4,7 +4,7 @@ scripts/plot_sddmm.py (fig 5: GFLOPS-vs-NNZ rolling curves),
 plot_hybrid.py (fig 5b: hybrid vs single-path), plot_reordering.py
 (fig 6: reordering quality) and plot_reordering_overhead.py (fig 7:
 preprocessing cost), driven by the ``[key : value]`` logs that
-``python -m sddmm_tpu.cli`` writes and ``analyze_results.py`` aggregates.
+``python -m bsmr_sddmm.cli`` writes and ``analyze_results.py`` aggregates.
 
 Usage:
     python scripts/plot_results.py sddmm LOGDIR [--k 128] [--out fig5.png]

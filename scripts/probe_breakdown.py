@@ -2,9 +2,9 @@
 """Component-level time breakdown of the hybrid SDDMM on the real device.
 
 Times each constituent of the hybrid program in isolation (B gathers, A
-gathers, batched MXU dots on pre-gathered operands, residual path, full
+gathers, batched tile dots on pre-gathered operands, residual path, full
 dense path, full hybrid) with the loop-differencing methodology
-(docs/performance.md), so perf work targets the measured bottleneck
+(utils/timing.diff_time_ms), so perf work targets the measured bottleneck
 instead of the modeled one.
 
 Usage:
@@ -33,25 +33,25 @@ def main(argv=None) -> int:
     p.add_argument("--delta", type=float, default=None)
     p.add_argument("--committed", action="store_true",
                    help="dissect the COMMITTED tuned config for this "
-                        "(matrix, K) — hub/pallas/a_layout/merge/dtype "
+                        "(matrix, K) — hub/a_layout/merge/dtype "
                         "included — instead of a fresh model-only "
-                        "autotune (VERDICT r4 next #1)")
+                        "autotune")
     p.add_argument("--file", default=None, help="matrix file instead of "
                    "a bench-suite name")
     args = p.parse_args(argv)
 
-    from sddmm_tpu.utils.cache import enable_persistent_cache
+    from bsmr_sddmm.utils.cache import enable_persistent_cache
     enable_persistent_cache()
 
     import jax
     import jax.numpy as jnp
 
     import bench
-    from sddmm_tpu.data import generate, io
-    from sddmm_tpu.ops.hybrid import (GROUP_LANES, HybridSDDMM, _PRECISION,
+    from bsmr_sddmm.data import generate, io
+    from bsmr_sddmm.ops.hybrid import (GROUP_LANES, HybridSDDMM, _PRECISION,
                                       _storage_dtype)
-    from sddmm_tpu.reorder.autotune import autotune, from_params
-    from sddmm_tpu.utils.timing import gflops, measure_loop_ms
+    from bsmr_sddmm.reorder.autotune import autotune, from_params
+    from bsmr_sddmm.utils.timing import gflops, measure_loop_ms
 
     if args.file:
         csr = io.load(args.file)
@@ -59,7 +59,6 @@ def main(argv=None) -> int:
         csr = bench.suite(False)[args.matrix]()
     # this probe dissects the hybrid kernel's stages — never the dense
     # strategy (which has no stages to attribute)
-    use_pallas = False
     a_layout = "rows"
     if args.committed:
         cfg = bench.load_tuned_config(args.matrix, args.k)
@@ -79,7 +78,6 @@ def main(argv=None) -> int:
             b_cost_scale=cfg.get("b_cost_scale", 1.0),
             hot_rows=cfg.get("rowslab_pre", 0) or cfg.get("rowslab", 0),
             hot_rows_pre=bool(cfg.get("rowslab_pre", 0)))
-        use_pallas = bool(cfg.get("pallas", False))
         a_layout = cfg.get("a_layout", "rows")
     else:
         tuned = autotune(
@@ -92,9 +90,9 @@ def main(argv=None) -> int:
     c = args.c if args.c is not None else tuned.k_chunks
     if g != tuned.group_size:
         # re-derive the packing at the requested G
-        from sddmm_tpu.reorder.bsmr import BSMR
-        from sddmm_tpu.reorder.cols import cluster_columns
-        from sddmm_tpu.reorder.pack import pack
+        from bsmr_sddmm.reorder.bsmr import BSMR
+        from bsmr_sddmm.reorder.cols import cluster_columns
+        from bsmr_sddmm.reorder.pack import pack
         rank = None
         if g > 1:
             order = cluster_columns(csr, tuned.alpha)
@@ -108,8 +106,7 @@ def main(argv=None) -> int:
         packed = tuned.packed
 
     runner = HybridSDDMM(packed, compute_dtype=args.compute_dtype,
-                         k_chunks=c, use_pallas=use_pallas,
-                         a_layout=a_layout)
+                         k_chunks=c, a_layout=a_layout)
     a = generate.make_dense(csr.m, args.k, seed=1)
     b = generate.make_dense(args.k, csr.n, seed=2)
     a_ops, bt_phys = runner.prepare_operands(a, b=b)
@@ -125,15 +122,15 @@ def main(argv=None) -> int:
     print(f"matrix={args.matrix} m={csr.m} n={csr.n} nnz={csr.nnz} "
           f"k={args.k} cfg=(a={tuned.alpha} d={tuned.delta} G="
           f"{packed.group_size} C={c} H={packed.hub_cols} "
-          f"pallas={use_pallas} aL={a_layout} "
+          f"aL={a_layout} "
           f"dt={args.compute_dtype} merge={tuned.merge_superpanels})")
     print(f"tiles: nS={packed.num_super} nQ={packed.num_quads} "
           f"nP={packed.num_pairs} nG={packed.num_groups} "
           f"res={packed.nnz_res} hub={packed.nnz_hub} "
           f"packed={packed.packed_size}")
-    # descriptor accounting: what the gather engine must issue
-    from sddmm_tpu.reorder.autotune import (_ELEM_BYTES,
-                                            descriptor_floor_ms, mxu_ms)
+    # gather accounting: the rows the B and A gathers fetch
+    from bsmr_sddmm.reorder.autotune import (_ELEM_BYTES,
+                                            descriptor_floor_ms, dot_ms)
     LGd = GROUP_LANES // packed.group_size
     n_tiles = (packed.num_super + packed.num_quads + packed.num_pairs
                + packed.num_groups)
@@ -147,9 +144,7 @@ def main(argv=None) -> int:
           f"width={b_bytes}B src="
           f"{(packed.num_col_groups + 1) * b_bytes * c / 1e6:.1f}MB; "
           f"floor(desc)={descriptor_floor_ms(packed, args.k, args.compute_dtype, c, a_layout):.4f}ms "
-          f"mxu_est={mxu_ms(packed, args.k, args.compute_dtype):.4f}ms "
-          f"sol={bench.sol_ms_of(packed, args.k, args.compute_dtype):.4f}"
-          f"ms")
+          f"dot_est={dot_ms(packed, args.k, args.compute_dtype):.4f}ms")
 
     segs = []  # (rows_arr, gids_arr, b, start, n_runs)
     for rows_arr, gids_arr, buckets in (
@@ -187,7 +182,7 @@ def main(argv=None) -> int:
 
     # panel-major A gather (a_layout="panels"): same rows via one 16-row
     # descriptor per panel
-    from sddmm_tpu.ops.hybrid import PANEL_ROWS
+    from bsmr_sddmm.ops.hybrid import PANEL_ROWS
     first_panel = packed.cont_panel_ids[packed.cont_panel_off[:-1]]
     fam_runoff = {}
     pst_segs = []

@@ -28,13 +28,13 @@ def main(argv=None) -> int:
     p.add_argument("--skip-greedy", action="store_true")
     args = p.parse_args(argv)
 
-    from sddmm_tpu.utils.cache import enable_persistent_cache
+    from bsmr_sddmm.utils.cache import enable_persistent_cache
     enable_persistent_cache()
 
-    from sddmm_tpu import native
-    from sddmm_tpu.data import generate
-    from sddmm_tpu.reorder.device_cluster import batched_cluster_device
-    from sddmm_tpu.reorder.rows import (_batched_cluster, _greedy_cluster,
+    from bsmr_sddmm import native
+    from bsmr_sddmm.data import generate
+    from bsmr_sddmm.reorder.device_cluster import batched_cluster_device
+    from bsmr_sddmm.reorder.rows import (_batched_cluster, _greedy_cluster,
                                         dispersion_scores, row_encodings)
 
     csr = generate.block_clustered(

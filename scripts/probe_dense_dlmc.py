@@ -15,7 +15,7 @@ per-tile A/B gathers.  Candidates measured (effective GFLOPS =
   dot+x    — plain dot followed by a flat gather into packed order
              (contract-honoring alternative to einsum)
 
-Run on the real chip (CLAUDE.md rule 1: nothing else may touch the TPU).
+Run on the GPU, with nothing else using the card.
 """
 
 import argparse
@@ -43,12 +43,12 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from sddmm_tpu.utils.cache import enable_persistent_cache
+    from bsmr_sddmm.utils.cache import enable_persistent_cache
     enable_persistent_cache()
-    from sddmm_tpu.data import generate
-    from sddmm_tpu.ops.hybrid import HybridSDDMM, _PRECISION
-    from sddmm_tpu.reorder.autotune import from_params
-    from sddmm_tpu.utils.timing import gflops, measure_loop_ms
+    from bsmr_sddmm.data import generate
+    from bsmr_sddmm.ops.hybrid import HybridSDDMM, _PRECISION
+    from bsmr_sddmm.reorder.autotune import from_params
+    from bsmr_sddmm.utils.timing import gflops, measure_loop_ms
 
     csr = generate.random_sparse(args.m, args.n, density=args.density,
                                  seed=46)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Does B-gather rate depend on the ADDRESS order of the grouped B^T
-rows?  The measured source-footprint effect (docs/performance.md: 2 MB
-sources gather 5-15x faster than 16 MB ones) could be an address-range
+rows?  A source-footprint effect (small sources gathering several
+times faster than large ones) could be an address-range
 working-set effect — if so, renumbering the physical group rows into
 *first-use order* (so consecutive tiles touch nearby addresses) should
 speed the same gather without changing a single descriptor count.
@@ -72,14 +72,14 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     import bench
-    from sddmm_tpu.utils.cache import enable_persistent_cache
+    from bsmr_sddmm.utils.cache import enable_persistent_cache
     enable_persistent_cache()
-    from sddmm_tpu.data import generate
-    from sddmm_tpu.ops.hybrid import HybridSDDMM
-    from sddmm_tpu.ops.reference import sddmm_reference
-    from sddmm_tpu.reorder.autotune import from_params
-    from sddmm_tpu.utils.check import check_values
-    from sddmm_tpu.utils.timing import gflops
+    from bsmr_sddmm.data import generate
+    from bsmr_sddmm.ops.hybrid import HybridSDDMM
+    from bsmr_sddmm.ops.reference import sddmm_reference
+    from bsmr_sddmm.reorder.autotune import from_params
+    from bsmr_sddmm.utils.check import check_values
+    from bsmr_sddmm.utils.timing import gflops
 
     csr = bench.suite(False)[args.matrix]()
     tuned = from_params(csr, args.k, alpha=args.alpha, delta=args.delta)

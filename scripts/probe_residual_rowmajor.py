@@ -46,9 +46,9 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from sddmm_tpu.utils.cache import enable_persistent_cache
+    from bsmr_sddmm.utils.cache import enable_persistent_cache
     enable_persistent_cache()
-    from sddmm_tpu.utils.timing import gflops, measure_loop_ms
+    from bsmr_sddmm.utils.timing import gflops, measure_loop_ms
 
     rng = np.random.default_rng(11)
     m, n, k, deg = args.m, args.n, args.k, args.deg

@@ -31,7 +31,7 @@ def main(argv=None):
     p.add_argument("--validate", action="store_true")
     args = p.parse_args(argv)
 
-    from sddmm_tpu import cli
+    from bsmr_sddmm import cli
 
     files = sorted(
         f for suffix in ("*.mtx", "*.smtx", "*.txt")

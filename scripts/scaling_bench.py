@@ -44,12 +44,12 @@ def main(argv=None):
     import jax
     import numpy as np
 
-    from sddmm_tpu.data import generate
-    from sddmm_tpu.ops.hybrid import HybridSDDMM
-    from sddmm_tpu.parallel.dist import DistributedHybridSDDMM
-    from sddmm_tpu.parallel.mesh import make_mesh
-    from sddmm_tpu.reorder.bsmr import BSMR
-    from sddmm_tpu.reorder.pack import pack
+    from bsmr_sddmm.data import generate
+    from bsmr_sddmm.ops.hybrid import HybridSDDMM
+    from bsmr_sddmm.parallel.dist import DistributedHybridSDDMM
+    from bsmr_sddmm.parallel.mesh import make_mesh
+    from bsmr_sddmm.reorder.bsmr import BSMR
+    from bsmr_sddmm.reorder.pack import pack
 
     n_avail = len(jax.devices())
     counts = args.devices or sorted(
@@ -70,7 +70,7 @@ def main(argv=None):
     ref_runner = HybridSDDMM(packed, compute_dtype="float32")
     ref_vals = np.asarray(ref_runner(a, b, order="csr"))
 
-    from sddmm_tpu.parallel.dist import count_collectives
+    from bsmr_sddmm.parallel.dist import count_collectives
 
     results = []
     for c in counts:

@@ -4,7 +4,7 @@
 Parses the ``winner: [tag]`` line of one or more probe_configs logs and
 updates the committed per-(matrix, K) config that bench.py executes.
 The tag grammar is what probe_configs prints:
-``a=0.3 d=0.05 G=1 C=1 H=0 [pallas] [apanels] [legacy-carve] [dtype]``.
+``a=0.3 d=0.05 G=1 C=1 H=0 [apanels] [legacy-carve] [dtype]``.
 
 Usage:
     python scripts/update_tuned_configs.py --matrix clustered16 --k 128 \
@@ -33,8 +33,6 @@ def parse_tag(tag: str) -> dict:
     hub = int(m.group(5))
     if hub:
         cfg["hub"] = hub
-    if " pallas" in tag:
-        cfg["pallas"] = True
     if " apanels" in tag:
         cfg["a_layout"] = "panels"
     if " nomerge" in tag:

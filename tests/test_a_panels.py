@@ -9,12 +9,12 @@ last panel) — the non-entry packed slots may legitimately differ
 import numpy as np
 import pytest
 
-from sddmm_tpu.data import generate
-from sddmm_tpu.data.generate import make_dense
-from sddmm_tpu.ops.hybrid import HybridSDDMM
-from sddmm_tpu.ops.reference import sddmm_reference
-from sddmm_tpu.reorder.bsmr import BSMR
-from sddmm_tpu.reorder.pack import pack
+from bsmr_sddmm.data import generate
+from bsmr_sddmm.data.generate import make_dense
+from bsmr_sddmm.ops.hybrid import HybridSDDMM
+from bsmr_sddmm.ops.reference import sddmm_reference
+from bsmr_sddmm.reorder.bsmr import BSMR
+from bsmr_sddmm.reorder.pack import pack
 
 
 def _golden_check(csr, k, bsmr, k_chunks=1):

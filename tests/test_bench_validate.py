@@ -1,6 +1,5 @@
 """bench.validate_tuned_configs: the --quick CI path must catch a
-malformed committed config before it crashes a 30-minute TPU run
-(VERDICT r3 weak #8)."""
+malformed committed config before it crashes a long GPU run."""
 
 import json
 import sys
@@ -32,8 +31,8 @@ def test_good_entries(configs):
     configs.write_text(json.dumps({
         "_comment": "x",
         "k128": {"m1": {"alpha": 0.3, "delta": 0.05, "g": 2, "c": 1,
-                        "merge": True, "hub": 2048, "pallas": True,
-                        "a_layout": "panels"},
+                        "merge": True, "hub": 2048,
+                        "a_layout": "panels", "rowslab_pre": 1024},
                  "m2": {"dense": True}}}))
     assert bench.validate_tuned_configs() == []
 
@@ -41,6 +40,8 @@ def test_good_entries(configs):
 @pytest.mark.parametrize("entry, frag", [
     ({"alpha": 0.3, "delta": 0.05, "a_layout": "panles"}, "a_layout"),
     ({"alpha": 0.3, "delta": 0.05, "gg": 2}, "unknown key"),
+    # the removed tile-kernel switch is not a config key any more
+    ({"alpha": 0.3, "delta": 0.05, "pallas": True}, "unknown key 'pallas'"),
     ({"alpha": 0.3}, "missing 'delta'"),
     ({"alpha": "0.3", "delta": 0.05}, "not a number"),
     ({"alpha": 0.3, "delta": 0.05, "g": 2.5}, "not an int"),

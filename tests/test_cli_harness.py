@@ -6,10 +6,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from sddmm_tpu import cli
-from sddmm_tpu.data import generate, io
-from sddmm_tpu.reorder.autotune import autotune, estimate_ms
-from sddmm_tpu.utils.logger import parse_log
+from bsmr_sddmm import cli
+from bsmr_sddmm.data import generate, io
+from bsmr_sddmm.reorder.autotune import autotune, estimate_ms
+from bsmr_sddmm.utils.logger import parse_log
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
 
@@ -31,7 +31,7 @@ def test_cli_single_run(matrix_file, tmp_path, capsys):
     entries = parse_log(out)
     assert entries["K"] == "32"
     assert float(entries["bsmr_gflops"]) > 0
-    assert (tmp_path / "BSMR_tpu_k_32.log").exists()
+    assert (tmp_path / "BSMR_k_32.log").exists()
 
 
 def test_cli_positional_compat(matrix_file, capsys):
@@ -70,14 +70,14 @@ def test_autotune_picks_valid_config():
     assert tuned.packed.nnz == csr.nnz
     # estimate is monotone-ish in work: a config with everything residual
     # must not be estimated faster than the tuned one
-    from sddmm_tpu.reorder.bsmr import BSMR
-    from sddmm_tpu.reorder.pack import pack
+    from bsmr_sddmm.reorder.bsmr import BSMR
+    from bsmr_sddmm.reorder.pack import pack
     worst = pack(csr, BSMR(0.3, 1.1, csr), merge_superpanels=False)
     assert estimate_ms(worst, 64) >= tuned.est_ms
 
 
 def test_runlog_parse_roundtrip():
-    from sddmm_tpu.utils.logger import RunLog
+    from bsmr_sddmm.utils.logger import RunLog
     log = RunLog(input_file="x.mtx", k=128, alpha=0.3, delta=0.1,
                  sddmm_time_ms=2.0)
     log.m, log.n, log.nnz = 100, 100, 5000
@@ -116,7 +116,7 @@ def test_run_baselines_script_runs(tmp_path, capsys):
     import runpy
     import sys
 
-    from sddmm_tpu.data import generate, io
+    from bsmr_sddmm.data import generate, io
 
     mdir = tmp_path / "m"
     mdir.mkdir()
@@ -146,7 +146,7 @@ def test_hybrid_ablation_tools_and_csv(tmp_path, capsys):
     import runpy
     import sys
 
-    from sddmm_tpu.data import generate, io
+    from bsmr_sddmm.data import generate, io
 
     mdir = tmp_path / "m"
     mdir.mkdir()
@@ -187,7 +187,7 @@ def test_fetch_suitesparse_mocked(tmp_path, monkeypatch, capsys):
 
     fetch = importlib.import_module("fetch_datasets")
 
-    from sddmm_tpu.data import generate, io
+    from bsmr_sddmm.data import generate, io
 
     def fake_retrieve(url, dest):
         assert url == "https://sparse.tamu.edu/MM/HB/tiny.tar.gz", url
@@ -214,10 +214,9 @@ def test_update_tuned_configs_tag_roundtrip():
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent
                            / "scripts"))
     from update_tuned_configs import parse_tag
-    cfg = parse_tag("a=0.1 d=0.05 G=2 C=2 H=2048 pallas apanels")
+    cfg = parse_tag("a=0.1 d=0.05 G=2 C=2 H=2048 apanels")
     assert cfg == {"alpha": 0.1, "delta": 0.05, "g": 2, "c": 2,
-                   "merge": True, "hub": 2048, "pallas": True,
-                   "a_layout": "panels"}
+                   "merge": True, "hub": 2048, "a_layout": "panels"}
     cfg2 = parse_tag("a=0.3 d=0.0 G=1 C=1 H=0 legacy-carve")
     assert cfg2 == {"alpha": 0.3, "delta": 0.0, "g": 1, "c": 1,
                     "merge": True, "window_dp": False}
@@ -240,7 +239,7 @@ def test_r3_autofold_folds_and_arbitrates(tmp_path, monkeypatch):
     configs = results / "tuned_configs.json"
     configs.write_text(json.dumps({
         "k128": {"clustered16": {"alpha": 0.3, "delta": 0.05, "g": 1,
-                                 "c": 1, "merge": True, "pallas": True},
+                                 "c": 1, "merge": True},
                  "dlmc": {"alpha": 0.3, "delta": 0.05, "g": 1, "c": 1,
                           "merge": True}},
         "k32": {"clustered16": {"alpha": 0.3, "delta": 0.0, "g": 4,
@@ -250,7 +249,7 @@ def test_r3_autofold_folds_and_arbitrates(tmp_path, monkeypatch):
     monkeypatch.setattr(utc, "CONFIGS", configs)
 
     (results / "probe_apanels_clustered16_r3.log").write_text(
-        "winner: [a=0.3 d=0.05 G=1 C=1 H=0 pallas apanels] 0.35 ms\n")
+        "winner: [a=0.3 d=0.05 G=1 C=1 H=0 apanels] 0.35 ms\n")
     (results / "probe_k32_apanels_r3.log").write_text(
         "winner: [a=0.3 d=0.0 G=4 C=1 H=0 apanels nomerge] 0.20 ms\n")
     # dense probe says dense 0.5 ms vs its own hybrid 1.2 ms, but the
@@ -265,7 +264,7 @@ def test_r3_autofold_folds_and_arbitrates(tmp_path, monkeypatch):
     data = json.loads(configs.read_text())
     assert data["k128"]["clustered16"] == {
         "alpha": 0.3, "delta": 0.05, "g": 1, "c": 1, "merge": True,
-        "pallas": True, "a_layout": "panels"}
+        "a_layout": "panels"}
     assert data["k32"]["clustered16"] == {
         "alpha": 0.3, "delta": 0.0, "g": 4, "c": 1, "merge": False,
         "a_layout": "panels"}
@@ -283,7 +282,7 @@ def test_r3_autofold_folds_and_arbitrates(tmp_path, monkeypatch):
 def test_descriptor_floor():
     """The gather-engine floor is positive, below (or equal to) the full
     cost estimate, and the panels A-layout strictly reduces it."""
-    from sddmm_tpu.reorder.autotune import descriptor_floor_ms, from_params
+    from bsmr_sddmm.reorder.autotune import descriptor_floor_ms, from_params
 
     csr = generate.block_clustered(48, 48, block_prob=0.1,
                                    noise_density=5e-3, seed=37)
@@ -298,24 +297,42 @@ def test_descriptor_floor():
     assert descriptor_floor_ms(cfg.packed, 128, k_chunks=2) >= rows_f
 
 
-def test_gather_grid_loader_pattern_generic():
-    """load_gather_grid merges ANY dict-valued pattern (e.g. the round-4
-    hot64 cell) at max rate and ignores string metadata keys."""
-    from sddmm_tpu.reorder import autotune as at
+@pytest.mark.parametrize("row_bytes", [128, 512, 1 << 20])
+def test_take_ms_prices_every_row(row_bytes):
+    """The gather term is the larger of rows / measured rate (the rate
+    tables already hold repeated fetches) and the payload's write time,
+    so it is linear in the row count."""
+    from bsmr_sddmm.reorder import autotune as at
 
-    saved = dict(at._FLOOR_RATE)
+    src = 8e6
+    one = at._take_ms(1e5, row_bytes, src)
+    assert one == pytest.approx(1e3 * max(
+        1e5 / at._row_rate(row_bytes, 8.0),
+        1e5 * row_bytes / (at.STREAM_GBPS * 1e9)))
+    assert at._take_ms(2e5, row_bytes, src) == pytest.approx(2 * one)
+    assert at._take_ms(0, row_bytes, src) == 0.0
+
+
+def test_descriptor_floor_reads_the_calibrated_tables():
+    """Doubling every calibrated row rate halves the gather floor."""
+    from bsmr_sddmm.reorder import autotune as at
+
+    csr = generate.block_clustered(32, 32, block_prob=0.1,
+                                   noise_density=5e-3, seed=38)
+    cfg = at.from_params(csr, 64, alpha=0.3, delta=0.05)
+    before = at.descriptor_floor_ms(cfg.packed, 64)
+    saved = dict(at._ROW_RATE_8MB)
     try:
-        at.load_gather_grid({"device": "d", "platform": "p",
-                             "uniform": {"512": {"2": 100.0}},
-                             "hot64": {"512": {"2": 900.0}}})
-        assert at._floor_row_rate(512, 2) == 900.0 * 1e6
+        at.load_calibration({"row_rate_8mb": {
+            str(rb): 2 * r for rb, r in saved.items()}})
+        assert at.descriptor_floor_ms(cfg.packed, 64) == \
+            pytest.approx(before / 2)
     finally:
-        at._FLOOR_RATE.clear()
-        at._FLOOR_RATE.update(saved)
+        at._ROW_RATE_8MB.update(saved)
 
 
 def test_estimate_dense_ms_scales():
-    from sddmm_tpu.reorder.autotune import estimate_dense_ms
+    from bsmr_sddmm.reorder.autotune import estimate_dense_ms
     small = estimate_dense_ms(256, 256, 64)
     big = estimate_dense_ms(1024, 1024, 64)
     assert 0 < small < big
@@ -332,9 +349,9 @@ def test_autotune_selects_dense_at_dlmc_density():
     assert tuned.dense and tuned.packed is None
     # the selected strategy delivers correct values
     import numpy as np
-    from sddmm_tpu.ops.dense import DenseSDDMM
-    from sddmm_tpu.ops.reference import sddmm_reference
-    from sddmm_tpu.utils.check import check_values
+    from bsmr_sddmm.ops.dense import DenseSDDMM
+    from bsmr_sddmm.ops.reference import sddmm_reference
+    from bsmr_sddmm.utils.check import check_values
     a = generate.make_dense(csr.m, 64, seed=1)
     b = generate.make_dense(64, csr.n, seed=2)
     runner = DenseSDDMM.from_csr(csr, compute_dtype="float32")
@@ -363,8 +380,8 @@ def test_shootout_measures_dense_candidate():
 def test_cli_tune_flag_dense_and_hybrid(tmp_path):
     """--tune picks a strategy end-to-end; validate must pass for both a
     DLMC-density matrix (dense strategy) and a sparse one (hybrid)."""
-    from sddmm_tpu.data import io as dio
-    from sddmm_tpu.cli import main as cli_main
+    from bsmr_sddmm.data import io as dio
+    from bsmr_sddmm.cli import main as cli_main
 
     dense_path = tmp_path / "dlmc.mtx"
     dio.save_mtx(dense_path, generate.random_sparse(96, 96, 0.3, seed=3))

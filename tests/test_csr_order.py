@@ -1,134 +1,138 @@
-"""Window-plan CSR-order delivery (ops/csr_order): exactness vs the
-direct gather, bucket handling, and the HybridSDDMM integration.
+"""CSR-order delivery: one per-entry gather of the packed output.
 
-The contract is bit-exactness: the one-hot select multiplies by 0/1 in
-fp32, so ``window_select(flat) == flat[inv_idx]`` element-for-element
-(reference output convention: matrixP[csrIdx],
-src/sddmmKernel.cu:213-355).
+The contract is bit-exactness against indexing the packed vector by the
+packing's ``inv_idx`` (reference output convention: matrixP[csrIdx],
+src/sddmmKernel.cu:213-355), and the reference's tolerance against the
+float64 golden model.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sddmm_tpu.ops.csr_order import build_window_plan, window_select
+from bsmr_sddmm.data import generate
+from bsmr_sddmm.data.sparse import COO
+from bsmr_sddmm.ops import dense as dense_mod
+from bsmr_sddmm.ops.dense import DenseSDDMM
+from bsmr_sddmm.ops.hybrid import HybridSDDMM
+from bsmr_sddmm.ops.reference import sddmm_reference
+from bsmr_sddmm.reorder.bsmr import BSMR
+from bsmr_sddmm.reorder.pack import pack
+from bsmr_sddmm.utils.check import check_values
 
 
-def _check(inv_idx, flat_size, seed=0):
-    rng = np.random.default_rng(seed)
-    flat = rng.standard_normal(flat_size).astype(np.float32)
-    plan = build_window_plan(inv_idx, flat_size)
-    import jax.numpy as jnp
-    out = np.asarray(window_select(jnp.asarray(flat),
-                                   plan.device_arrays(),
-                                   plan.nnz))
-    np.testing.assert_array_equal(out, flat[inv_idx])
-    # MXU select: exact up to the bf16 hi/lo split of the window values
-    out_mxu = np.asarray(window_select(jnp.asarray(flat),
-                                       plan.device_arrays(),
-                                       plan.nnz, select="mxu"))
-    ref = flat[inv_idx]
-    rel = np.abs(out_mxu - ref) / np.maximum(np.abs(ref), 1e-30)
-    assert rel.max() <= 2 ** -16, rel.max()
-    return plan
+def _clustered():
+    return generate.block_clustered(64, 64, block_prob=0.08,
+                                    block_density=0.7,
+                                    noise_density=0.001, seed=7)
 
 
-def test_local_permutation_single_bucket():
-    # sources clustered: each out block reads from ~2 atoms
-    rng = np.random.default_rng(1)
-    f = 4096
-    inv = np.arange(f)
-    for blk in range(0, f, 256):
-        rng.shuffle(inv[blk:blk + 256])
-    plan = _check(inv[:3000], f)
-    assert plan.max_s <= 4
-    assert plan.nnz == 3000
+def _scattered():
+    return generate.random_sparse(300, 400, density=0.02, seed=2)
 
 
-def test_scattered_permutation_multi_bucket():
-    rng = np.random.default_rng(2)
-    f = 8192
-    inv = rng.permutation(f)[:5000]
-    plan = _check(inv, f)
-    assert plan.max_s > 4          # random sources: wide windows
-    assert len(plan.buckets) >= 1
-    # every output block accounted for exactly once
-    ids = np.concatenate([b[3] for b in plan.buckets])
-    assert sorted(ids) == list(range(plan.num_blocks))
+def _ragged():
+    # empty rows and a row count that is no multiple of the panel height
+    return COO((37, 50), [0, 5, 5, 36], [1, 2, 3, 49], np.ones(4)).to_csr()
 
 
-def test_repeated_sources_and_tail_block():
-    rng = np.random.default_rng(3)
-    f = 1000                        # not a multiple of 128
-    inv = rng.integers(0, f, size=333)   # repeats allowed
-    _check(inv, f)
+def _single():
+    return COO((16, 16), [3], [9], np.ones(1)).to_csr()
 
 
-def test_tiny():
-    _check(np.array([5, 3, 9]), 16)
-
-
-def test_hybrid_window_strategy_matches_reference():
-    from sddmm_tpu.data import generate
-    from sddmm_tpu.ops.hybrid import HybridSDDMM
-    from sddmm_tpu.ops.reference import sddmm_reference
-    from sddmm_tpu.utils.check import check_values
-
-    csr = generate.block_clustered(64, 64, block_prob=0.08,
-                                   block_density=0.7,
-                                   noise_density=0.001, seed=7)
+@pytest.mark.parametrize("make", [_clustered, _scattered, _ragged, _single],
+                         ids=["clustered", "scattered", "ragged", "single"])
+def test_hybrid_csr_order_is_the_inv_idx_gather(make):
+    csr = make()
     a = generate.make_dense(csr.m, 32, seed=1)
     b = generate.make_dense(32, csr.n, seed=2)
-    runner = HybridSDDMM.from_csr(csr, compute_dtype="float32")
-    golden = sddmm_reference(a, b, csr)
+    runner = HybridSDDMM.from_csr(csr, compute_dtype="float32",
+                                  method="greedy")
     ops = runner.prepare_operands(a, b=b)
     flat = runner.run_padded(*ops, order="packed")
-    for strategy in ("gather", "sort", "window", "mxu"):
-        out = np.asarray(runner.to_csr_order(flat, strategy=strategy))
-        res = check_values(golden, out)
-        assert res.passed, (strategy, res.max_rel_err)
-    # window output is bit-identical to the gather route
+    got = np.asarray(runner.to_csr_order(flat))
     np.testing.assert_array_equal(
-        np.asarray(runner.to_csr_order(flat, strategy="window")),
-        np.asarray(runner.to_csr_order(flat, strategy="gather")))
+        got, np.asarray(flat)[runner.packed.inv_idx])
+    np.testing.assert_array_equal(
+        got, np.asarray(runner.run_padded(*ops, order="csr")))
+    res = check_values(sddmm_reference(a, b, csr), got)
+    assert res.passed, str(res)
 
 
-@pytest.mark.parametrize("strategy", ["window", "mxu"])
-def test_hybrid_looped_fn_window(strategy):
-    from sddmm_tpu.data import generate
-    from sddmm_tpu.ops.hybrid import HybridSDDMM
+@pytest.mark.parametrize("a_layout", ["rows", "panels"])
+def test_hybrid_csr_order_each_a_layout(a_layout):
+    csr = _clustered()
+    a = generate.make_dense(csr.m, 32, seed=3)
+    b = generate.make_dense(32, csr.n, seed=4)
+    runner = HybridSDDMM(pack(csr, BSMR(0.3, 0.05, csr)),
+                         compute_dtype="float32", a_layout=a_layout)
+    got = np.asarray(runner(a, b=b, order="csr"))
+    res = check_values(sddmm_reference(a, b, csr), got)
+    assert res.passed, str(res)
 
+
+@pytest.mark.parametrize("order", ["packed", "csr"])
+def test_hybrid_looped_fn_runs_each_order(order):
     csr = generate.block_clustered(32, 32, block_prob=0.1,
                                    block_density=0.8,
                                    noise_density=0.002, seed=8)
-    a = generate.make_dense(csr.m, 32, seed=1)
-    b = generate.make_dense(32, csr.n, seed=2)
     runner = HybridSDDMM.from_csr(csr)
-    runner.csr_strategy = strategy
-    ops = runner.prepare_operands(a, b=b)
-    f = runner.make_looped_fn(3, order="csr")
+    ops = runner.prepare_operands(generate.make_dense(csr.m, 32, seed=1),
+                                  b=generate.make_dense(32, csr.n, seed=2))
+    f = runner.make_looped_fn(3, order=order)
     assert np.isfinite(float(f(*ops)))
 
 
-@pytest.mark.parametrize("strategy", ["take", "window", "mxu"])
-def test_dense_csr_order_strategies(strategy):
-    """DenseSDDMM CSR delivery: window plan over the (M, N) flat
-    (round 4 — replaces the per-entry flat take, measured 144 ms vs a
-    0.063 ms kernel on the bench dlmc matrix)."""
-    from sddmm_tpu.data import generate
-    from sddmm_tpu.ops.dense import DenseSDDMM
-    from sddmm_tpu.ops.reference import sddmm_reference
-    from sddmm_tpu.utils.check import check_values
+def test_csr_order_gradient_routes_to_the_entry_slots():
+    """d sum(w * csr(flat)) / d flat puts w[i] at slot inv_idx[i] and
+    zero on padding slots — the transpose of the gather."""
+    csr = _clustered()
+    runner = HybridSDDMM.from_csr(csr, compute_dtype="float32")
+    flat = jnp.zeros(runner.packed.packed_size, jnp.float32)
+    w = jnp.asarray(np.random.default_rng(0).standard_normal(csr.nnz),
+                    jnp.float32)
+    g = np.asarray(jax.grad(
+        lambda f: jnp.sum(w * runner.to_csr_order(f)))(flat))
+    want = np.zeros(runner.packed.packed_size, np.float32)
+    want[runner.packed.inv_idx] = np.asarray(w)
+    np.testing.assert_array_equal(g, want)
 
+
+def test_light_pack_looped_csr_raises():
+    csr = generate.block_clustered(10, 9, block_prob=0.35, seed=21)
+    light = HybridSDDMM(pack(csr, BSMR(0.3, 0.1, csr), full_metadata=False))
+    with pytest.raises(ValueError, match="light packing"):
+        light.make_looped_fn(2, order="csr")
+
+
+@pytest.mark.parametrize("flat_index", [True, False],
+                         ids=["flat-take", "row-col-gather"])
+def test_dense_csr_order(flat_index, monkeypatch):
+    """DenseSDDMM delivers CSR order by one flat take, or by (row, col)
+    pairs where a flat int32 index into the (M, N) product would
+    overflow (forced here by lowering the limit)."""
+    if not flat_index:
+        monkeypatch.setattr(dense_mod, "FLAT_INDEX_LIMIT", 1)
     csr = generate.random_sparse(96, 160, density=0.2, seed=11)
     a = generate.make_dense(csr.m, 32, seed=1)
     b = generate.make_dense(32, csr.n, seed=2)
-    runner = DenseSDDMM.from_csr(csr)
-    runner.csr_strategy = strategy
-    golden = sddmm_reference(a, b, csr)
-    out = np.asarray(runner(a, b=b, order="csr"))
-    res = check_values(golden, out)
-    assert res.passed, (strategy, res.max_rel_err)
-    # looped timing body compiles and runs with the same strategy
+    runner = DenseSDDMM.from_csr(csr, compute_dtype="float32")
+    flat_idx, rows_cols = runner._csr_gather_ops()
+    assert (flat_idx is not None) == flat_index
+    assert (rows_cols is not None) != flat_index
+    got = np.asarray(runner(a, b=b, order="csr"))
+    res = check_values(sddmm_reference(a, b, csr), got)
+    assert res.passed, str(res)
+    # the looped timing body compiles and runs the same gather
     ops = runner.prepare_operands(a, b=b)
-    f = runner.make_looped_fn(2, order="csr")
-    assert np.isfinite(float(f(*ops)))
+    assert np.isfinite(float(runner.make_looped_fn(2, order="csr")(*ops)))
+
+
+def test_dense_csr_order_needs_the_pattern():
+    runner = DenseSDDMM(8, 8, compute_dtype="float32")
+    a = generate.make_dense(8, 16, seed=1)
+    b = generate.make_dense(16, 8, seed=2)
+    assert np.asarray(runner(a, b=b, order="packed")).shape == (8, 8)
+    with pytest.raises(ValueError, match="from_csr"):
+        runner(a, b=b, order="csr")

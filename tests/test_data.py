@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sddmm_tpu.data import generate, io
-from sddmm_tpu.data.sparse import COO, CSR
+from bsmr_sddmm.data import generate, io
+from bsmr_sddmm.data.sparse import COO, CSR
 
 
 def test_coo_csr_roundtrip():
@@ -134,8 +134,8 @@ def test_powerlaw_graph():
 def test_smtx_to_bf16_hybrid_pipeline(tmp_path):
     """BASELINE config 4: DLMC-style .smtx matrix through the bfloat16
     accumulate-fp32 hybrid path (pattern-only values)."""
-    from sddmm_tpu.ops.hybrid import HybridSDDMM
-    from sddmm_tpu.ops.reference import sddmm_reference
+    from bsmr_sddmm.ops.hybrid import HybridSDDMM
+    from bsmr_sddmm.ops.reference import sddmm_reference
 
     csr0 = generate.block_clustered(8, 8, block_prob=0.25, seed=77)
     path = tmp_path / "dlmc.smtx"
@@ -154,7 +154,7 @@ def test_smtx_to_bf16_hybrid_pipeline(tmp_path):
 
 
 def test_npz_graph_roundtrip(tmp_path, small_random_csr):
-    from sddmm_tpu.data import io
+    from bsmr_sddmm.data import io
 
     path = tmp_path / "g.npz"
     io.save_npz_graph(path, small_random_csr)
@@ -169,7 +169,7 @@ def test_convert_mtx_to_npz_script(tmp_path, small_random_csr):
     import runpy
     import sys
 
-    from sddmm_tpu.data import io
+    from bsmr_sddmm.data import io
 
     mtx = tmp_path / "m.mtx"
     io.save_mtx(mtx, small_random_csr)

@@ -5,9 +5,9 @@ precision, across regimes."""
 import numpy as np
 import pytest
 
-from sddmm_tpu.data import generate
-from sddmm_tpu.reorder.device_cluster import batched_cluster_device
-from sddmm_tpu.reorder.rows import (_batched_cluster, dispersion_scores,
+from bsmr_sddmm.data import generate
+from bsmr_sddmm.reorder.device_cluster import batched_cluster_device
+from bsmr_sddmm.reorder.rows import (_batched_cluster, dispersion_scores,
                                     row_encodings)
 
 
@@ -75,17 +75,31 @@ def test_device_empty_and_single():
 
 def test_auto_routing_viability(monkeypatch):
     """method='auto' routes large matrices to the device path only when
-    the backend is non-CPU (or forced), within the dense-hat budget."""
-    from sddmm_tpu.reorder import rows
+    the backend is the GPU (or forced), within the dense-hat budget."""
+    from bsmr_sddmm.reorder import rows
 
     # env kill-switch beats everything
-    monkeypatch.setenv("SDDMM_TPU_DEVICE_CLUSTER", "0")
+    monkeypatch.setenv("BSMR_SDDMM_DEVICE_CLUSTER", "0")
     assert not rows._device_cluster_viable(200_000, 64)
     # forced on: only the memory budget gates
-    monkeypatch.setenv("SDDMM_TPU_DEVICE_CLUSTER", "1")
+    monkeypatch.setenv("BSMR_SDDMM_DEVICE_CLUSTER", "1")
     assert rows._device_cluster_viable(200_000, 64)
     m_huge = (rows.DEVICE_CLUSTER_HAT_BUDGET // (4 * 64)) + 4096
     assert not rows._device_cluster_viable(m_huge, 64)
     # default: tests run on CPU, so auto stays host-side
-    monkeypatch.delenv("SDDMM_TPU_DEVICE_CLUSTER", raising=False)
+    monkeypatch.delenv("BSMR_SDDMM_DEVICE_CLUSTER", raising=False)
+    assert not rows._device_cluster_viable(200_000, 64)
+
+
+def test_auto_routing_viability_names_the_gpu(monkeypatch):
+    """Without the env switch, only a GPU backend — the device the
+    route's cost was measured on — makes the device route viable."""
+    import jax
+
+    from bsmr_sddmm.reorder import rows
+
+    monkeypatch.delenv("BSMR_SDDMM_DEVICE_CLUSTER", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert rows._device_cluster_viable(200_000, 64)
+    monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
     assert not rows._device_cluster_viable(200_000, 64)

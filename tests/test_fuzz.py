@@ -9,14 +9,14 @@ reproduce.
 import numpy as np
 import pytest
 
-from sddmm_tpu.data import generate
-from sddmm_tpu.ops.hybrid import HybridSDDMM
-from sddmm_tpu.ops.reference import sddmm_reference
-from sddmm_tpu.reorder.bsmr import BSMR
-from sddmm_tpu.reorder.pack import pack
-from sddmm_tpu.reorder.validate import (check_col_reordering, check_pack,
+from bsmr_sddmm.data import generate
+from bsmr_sddmm.ops.hybrid import HybridSDDMM
+from bsmr_sddmm.ops.reference import sddmm_reference
+from bsmr_sddmm.reorder.bsmr import BSMR
+from bsmr_sddmm.reorder.pack import pack
+from bsmr_sddmm.reorder.validate import (check_col_reordering, check_pack,
                                         check_row_reordering)
-from sddmm_tpu.utils.check import check_values
+from bsmr_sddmm.utils.check import check_values
 
 
 def _random_matrix(rng):
@@ -85,8 +85,8 @@ def test_fuzz_autotune_strategy_dispatch():
     """Random densities across the dense/hybrid boundary: whatever
     strategy the autotuner picks must deliver checkData-tolerance
     results through its own runner class."""
-    from sddmm_tpu.ops.dense import DenseSDDMM
-    from sddmm_tpu.reorder.autotune import autotune
+    from bsmr_sddmm.ops.dense import DenseSDDMM
+    from bsmr_sddmm.reorder.autotune import autotune
 
     rng = np.random.default_rng(99)
     for _ in range(6):

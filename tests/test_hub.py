@@ -5,15 +5,15 @@ generation, and the explicit-config builder."""
 import numpy as np
 import pytest
 
-from sddmm_tpu.data import generate
-from sddmm_tpu.ops.hybrid import HybridSDDMM
-from sddmm_tpu.ops.reference import sddmm_reference
-from sddmm_tpu.reorder.autotune import from_params, hub_candidates
-from sddmm_tpu.reorder.bsmr import BSMR
-from sddmm_tpu.reorder.cols import cluster_columns, hub_first_rank
-from sddmm_tpu.reorder.pack import pack
-from sddmm_tpu.reorder.validate import (check_col_reordering, check_pack)
-from sddmm_tpu.utils.check import check_values
+from bsmr_sddmm.data import generate
+from bsmr_sddmm.ops.hybrid import HybridSDDMM
+from bsmr_sddmm.ops.reference import sddmm_reference
+from bsmr_sddmm.reorder.autotune import from_params, hub_candidates
+from bsmr_sddmm.reorder.bsmr import BSMR
+from bsmr_sddmm.reorder.cols import cluster_columns, hub_first_rank
+from bsmr_sddmm.reorder.pack import pack
+from bsmr_sddmm.reorder.validate import (check_col_reordering, check_pack)
+from bsmr_sddmm.utils.check import check_values
 
 
 def _powerlawish(seed=3):

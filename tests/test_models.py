@@ -3,9 +3,9 @@
 import jax
 import numpy as np
 
-from sddmm_tpu.data import generate
-from sddmm_tpu.models.factorization import SparseFactorizationModel
-from sddmm_tpu.models.graph_attention import (GraphAttentionLayer,
+from bsmr_sddmm.data import generate
+from bsmr_sddmm.models.factorization import SparseFactorizationModel
+from bsmr_sddmm.models.graph_attention import (GraphAttentionLayer,
                                               segment_softmax)
 
 
@@ -52,7 +52,7 @@ def test_graph_attention_forward():
 def test_graph_attention_matches_dense_attention():
     """On a fully-connected tiny graph the sparse attention must equal
     dense softmax attention."""
-    from sddmm_tpu.data.sparse import COO
+    from bsmr_sddmm.data.sparse import COO
     n = 12
     rows, cols = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
     adj = COO((n, n), rows.ravel(), cols.ravel(),
@@ -73,9 +73,9 @@ def test_graph_attention_matches_dense_attention():
 
 
 def test_distributed_factorization_trains():
-    from sddmm_tpu.models.factorization import (
+    from bsmr_sddmm.models.factorization import (
         DistributedSparseFactorizationModel)
-    from sddmm_tpu.parallel.mesh import make_mesh
+    from bsmr_sddmm.parallel.mesh import make_mesh
 
     csr = generate.block_clustered(8, 8, block_prob=0.3, seed=13)
     mesh = make_mesh((4, 2), ("rows", "feat"))
@@ -86,7 +86,7 @@ def test_distributed_factorization_trains():
 
 
 def test_attention_mask_structure():
-    from sddmm_tpu.models import make_attention_mask
+    from bsmr_sddmm.models import make_attention_mask
     mask = make_attention_mask(96, window=8, num_global=3)
     assert mask.m == mask.n == 96
     d = mask.to_dense() > 0
@@ -101,8 +101,8 @@ def test_attention_mask_structure():
 
 def test_block_sparse_attention_matches_dense():
     import jax
-    from sddmm_tpu.models import BlockSparseAttention, make_attention_mask
-    from sddmm_tpu.models.block_sparse_attention import (
+    from bsmr_sddmm.models import BlockSparseAttention, make_attention_mask
+    from bsmr_sddmm.models.block_sparse_attention import (
         dense_reference_attention)
     mask = make_attention_mask(160, window=12, num_global=4)
     model = BlockSparseAttention(mask, feature_dim=24, num_heads=2,
@@ -118,7 +118,7 @@ def test_block_sparse_attention_matches_dense():
 def test_block_sparse_attention_grad_flows():
     import jax
     import jax.numpy as jnp
-    from sddmm_tpu.models import BlockSparseAttention, make_attention_mask
+    from bsmr_sddmm.models import BlockSparseAttention, make_attention_mask
     mask = make_attention_mask(64, window=6, num_global=2, causal=True)
     model = BlockSparseAttention(mask, feature_dim=8, num_heads=1,
                                  head_dim=8)
@@ -136,7 +136,7 @@ def test_block_sparse_attention_grad_flows():
 
 
 def test_factorization_checkpoint_resume(tmp_path):
-    from sddmm_tpu.models import SparseFactorizationModel
+    from bsmr_sddmm.models import SparseFactorizationModel
 
     csr = generate.block_clustered(8, 8, block_prob=0.4, seed=5)
     tgt = np.random.default_rng(0).standard_normal(csr.nnz).astype(

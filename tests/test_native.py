@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from sddmm_tpu import native
-from sddmm_tpu.data import generate, io
-from sddmm_tpu.reorder import rows as rows_mod
+from bsmr_sddmm import native
+from bsmr_sddmm.data import generate, io
+from bsmr_sddmm.reorder import rows as rows_mod
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C++ toolchain")
@@ -65,7 +65,7 @@ def test_greedy_cluster_parity(clustered_csr):
 
 
 def test_cpu_golden_parity(small_random_csr):
-    from sddmm_tpu.ops.reference import sddmm_reference
+    from bsmr_sddmm.ops.reference import sddmm_reference
     csr = small_random_csr
     a = generate.make_dense(csr.m, 16, seed=1)
     b = generate.make_dense(16, csr.n, seed=2)

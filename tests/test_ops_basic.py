@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from sddmm_tpu.data import generate
-from sddmm_tpu.ops import (batched_csr_sddmm, batched_transpose, csr_sddmm,
+from bsmr_sddmm.data import generate
+from bsmr_sddmm.ops import (batched_csr_sddmm, batched_transpose, csr_sddmm,
                            csr_spmm, sddmm_reference)
-from sddmm_tpu.ops.csr_sddmm import csr_sddmm as csr_sddmm_fn
-from sddmm_tpu.utils.check import check_values
+from bsmr_sddmm.ops.csr_sddmm import csr_sddmm as csr_sddmm_fn
+from bsmr_sddmm.utils.check import check_values
 
 
 def _mats(m=64, n=48, k=16, density=0.1, seed=0):
@@ -88,7 +88,7 @@ def test_batched_transpose():
 
 
 def test_dense_masked_sddmm_matches_reference():
-    from sddmm_tpu.ops.dense import dense_masked_sddmm
+    from bsmr_sddmm.ops.dense import dense_masked_sddmm
     a, b, s = _mats(m=100, n=80, k=32, density=0.3, seed=9)
     got = dense_masked_sddmm(a, b, s, compute_dtype="float32")
     want = sddmm_reference(a, b, s)
@@ -97,7 +97,7 @@ def test_dense_masked_sddmm_matches_reference():
 
 
 def test_dense_runner_csr_order_matches_reference():
-    from sddmm_tpu.ops.dense import DenseSDDMM
+    from bsmr_sddmm.ops.dense import DenseSDDMM
     a, b, s = _mats(m=100, n=80, k=32, density=0.3, seed=9)
     runner = DenseSDDMM.from_csr(s, compute_dtype="float32")
     got = np.asarray(runner(a, b=b, order="csr"))
@@ -108,7 +108,7 @@ def test_dense_runner_csr_order_matches_reference():
 
 def test_dense_runner_packed_layout_contract():
     # native layout: value of CSR entry (r, c) sits at full[r, c]
-    from sddmm_tpu.ops.dense import DenseSDDMM
+    from bsmr_sddmm.ops.dense import DenseSDDMM
     a, b, s = _mats(m=64, n=48, k=16, density=0.25, seed=3)
     runner = DenseSDDMM.from_csr(s, compute_dtype="float32")
     a_dev, bt_dev = runner.prepare_operands(a, b=b)
@@ -126,7 +126,7 @@ def test_dense_runner_packed_layout_contract():
 
 
 def test_dense_runner_measure_paths_run():
-    from sddmm_tpu.ops.dense import DenseSDDMM
+    from bsmr_sddmm.ops.dense import DenseSDDMM
     a, b, s = _mats(m=64, n=48, k=16, density=0.25, seed=3)
     runner = DenseSDDMM.from_csr(s, compute_dtype="tf32")
     a_dev, bt_dev = runner.prepare_operands(a, b=b)
@@ -138,16 +138,16 @@ def test_dense_runner_measure_paths_run():
 
 def test_profiling_wrappers_noop_safe(tmp_path):
     import jax.numpy as jnp
-    from sddmm_tpu.utils.profiling import annotate, trace
+    from bsmr_sddmm.utils.profiling import annotate, trace
     with trace(tmp_path):
         with annotate("stage"):
             assert float(jnp.asarray(1.0) + 1.0) == 2.0
 
 
 def test_batch_overlap_report():
-    from sddmm_tpu.data import generate
-    from sddmm_tpu.ops.batch import batch_overlap_report
-    from sddmm_tpu.ops.hybrid import HybridSDDMM
+    from bsmr_sddmm.data import generate
+    from bsmr_sddmm.ops.batch import batch_overlap_report
+    from bsmr_sddmm.ops.hybrid import HybridSDDMM
 
     csr = generate.block_clustered(8, 8, block_prob=0.3, seed=9)
     runner = HybridSDDMM.from_csr(csr, 0.3, 0.3, compute_dtype="float32")

@@ -10,14 +10,14 @@ check), and the gid streams must actually have the promised order.
 import numpy as np
 import pytest
 
-from sddmm_tpu.data import generate
-from sddmm_tpu.ops.hybrid import HybridSDDMM
-from sddmm_tpu.ops.reference import sddmm_reference
-from sddmm_tpu.reorder.autotune import from_params
-from sddmm_tpu.reorder.bsmr import BSMR
-from sddmm_tpu.reorder.pack import pack
-from sddmm_tpu.reorder.validate import check_pack
-from sddmm_tpu.utils.check import check_values
+from bsmr_sddmm.data import generate
+from bsmr_sddmm.ops.hybrid import HybridSDDMM
+from bsmr_sddmm.ops.reference import sddmm_reference
+from bsmr_sddmm.reorder.autotune import from_params
+from bsmr_sddmm.reorder.bsmr import BSMR
+from bsmr_sddmm.reorder.pack import pack
+from bsmr_sddmm.reorder.validate import check_pack
+from bsmr_sddmm.utils.check import check_values
 
 
 def _csr():
@@ -96,7 +96,7 @@ def test_rowslab_moves_hot_residual_rows():
     csr = generate.powerlaw_graph(1024, avg_degree=12, seed=3)
     t = from_params(csr, 32, alpha=0.1, delta=0.05, hot_rows=64)
     pk = t.packed
-    from sddmm_tpu.reorder.validate import check_pack
+    from bsmr_sddmm.reorder.validate import check_pack
     check_pack(csr, t.bsmr, pk)
     assert pk.rowslab_nrows == 64
     assert pk.rowslab_width == csr.n
@@ -115,7 +115,7 @@ def test_rowslab_with_hub_and_grouping():
     csr = generate.powerlaw_graph(1024, avg_degree=12, seed=5)
     t = from_params(csr, 32, alpha=0.1, delta=0.05, group_size=2,
                     hub_cols=128, hot_rows=32)
-    from sddmm_tpu.reorder.validate import check_pack
+    from bsmr_sddmm.reorder.validate import check_pack
     check_pack(csr, t.bsmr, t.packed)
     assert (t.packed.rowslab_rank >= 0).all()
     a = generate.make_dense(csr.m, 32, seed=1)

@@ -4,13 +4,13 @@ import jax
 import numpy as np
 import pytest
 
-from sddmm_tpu.data import generate
-from sddmm_tpu.ops.reference import sddmm_reference
-from sddmm_tpu.parallel.dist import DistributedHybridSDDMM
-from sddmm_tpu.parallel.mesh import make_mesh
-from sddmm_tpu.reorder.bsmr import BSMR
-from sddmm_tpu.reorder.pack import pack
-from sddmm_tpu.utils.check import check_values
+from bsmr_sddmm.data import generate
+from bsmr_sddmm.ops.reference import sddmm_reference
+from bsmr_sddmm.parallel.dist import DistributedHybridSDDMM
+from bsmr_sddmm.parallel.mesh import make_mesh
+from bsmr_sddmm.reorder.bsmr import BSMR
+from bsmr_sddmm.reorder.pack import pack
+from bsmr_sddmm.utils.check import check_values
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +73,7 @@ def test_graft_dryrun_multichip():
 def test_no_flat_allgather_in_sharded_step(packed_small, mesh_shape):
     """The packed-order sharded step must not all-gather the flat value
     vector; its only collective is the psum over 'feat'."""
-    from sddmm_tpu.parallel.dist import count_collectives
+    from bsmr_sddmm.parallel.dist import count_collectives
 
     csr, packed = packed_small
     mesh = make_mesh(mesh_shape, ("rows", "feat"))
@@ -118,7 +118,7 @@ def test_distributed_grouped_chunked_hub():
     """Grouped (G=4), K-chunked (C=2), hub-slab (H=64) packing through
     the distributed path: exercises the res_member one-hot, gid layout,
     bt chunk sharding, and the per-device slab segment (ADVICE r2)."""
-    from sddmm_tpu.reorder.cols import cluster_columns, hub_first_rank
+    from bsmr_sddmm.reorder.cols import cluster_columns, hub_first_rank
 
     csr = generate.powerlaw_graph(256, avg_degree=10, seed=21)
     order = cluster_columns(csr, 0.3)
@@ -144,8 +144,8 @@ def test_distributed_scale_mixed_families():
     shard-plan build, and correctness."""
     import time
 
-    from sddmm_tpu.data.sparse import COO
-    from sddmm_tpu.parallel.dist import _ShardPlan
+    from bsmr_sddmm.data.sparse import COO
+    from bsmr_sddmm.parallel.dist import _ShardPlan
 
     parts = [
         generate.block_clustered(32, 64, group_rows=128, group_cols=128,
@@ -219,7 +219,7 @@ def test_distributed_panels_layout(packed_small, mesh_shape):
 
 
 def test_distributed_panels_grouped_chunked_hub():
-    from sddmm_tpu.reorder.cols import cluster_columns, hub_first_rank
+    from bsmr_sddmm.reorder.cols import cluster_columns, hub_first_rank
 
     csr = generate.powerlaw_graph(256, avg_degree=10, seed=21)
     order = cluster_columns(csr, 0.3)
@@ -259,7 +259,7 @@ def test_distributed_panels_grad_flows(packed_small):
 
 @pytest.mark.parametrize("mesh_shape", [(8, 1), (4, 2), (2, 4)])
 def test_distributed_dense_matches_reference(mesh_shape):
-    from sddmm_tpu.parallel.dist import DistributedDenseSDDMM
+    from bsmr_sddmm.parallel.dist import DistributedDenseSDDMM
     csr = generate.random_sparse(100, 96, density=0.3, seed=21)
     mesh = make_mesh(mesh_shape, ("rows", "feat"))
     dist = DistributedDenseSDDMM.from_csr(csr, mesh)
@@ -273,7 +273,7 @@ def test_distributed_dense_matches_reference(mesh_shape):
 
 
 def test_distributed_dense_single_psum_no_gather():
-    from sddmm_tpu.parallel.dist import (DistributedDenseSDDMM,
+    from bsmr_sddmm.parallel.dist import (DistributedDenseSDDMM,
                                          count_collectives)
     csr = generate.random_sparse(64, 64, density=0.3, seed=22)
     mesh = make_mesh((4, 2), ("rows", "feat"))
@@ -287,7 +287,7 @@ def test_distributed_dense_single_psum_no_gather():
 
 
 def test_distributed_dense_grad_flows():
-    from sddmm_tpu.parallel.dist import DistributedDenseSDDMM
+    from bsmr_sddmm.parallel.dist import DistributedDenseSDDMM
     csr = generate.random_sparse(64, 64, density=0.3, seed=23)
     mesh = make_mesh((4, 2), ("rows", "feat"))
     dist = DistributedDenseSDDMM.from_csr(csr, mesh)
@@ -306,7 +306,7 @@ def test_distributed_dense_grad_flows():
 
 
 def test_distributed_dense_k_divisibility_error():
-    from sddmm_tpu.parallel.dist import DistributedDenseSDDMM
+    from bsmr_sddmm.parallel.dist import DistributedDenseSDDMM
     csr = generate.random_sparse(64, 64, density=0.3, seed=24)
     mesh = make_mesh((2, 4), ("rows", "feat"))
     dist = DistributedDenseSDDMM.from_csr(csr, mesh)
@@ -321,8 +321,8 @@ def test_distributed_rowslab_bit_equal_single_chip():
     """Hot-row slab packings (pre and post selection, with and without
     a hub) run distributed and match the single-chip kernel bit-for-bit
     on every real packed slot (same float32 path and K-chunking)."""
-    from sddmm_tpu.ops.hybrid import HybridSDDMM
-    from sddmm_tpu.reorder.autotune import from_params
+    from bsmr_sddmm.ops.hybrid import HybridSDDMM
+    from bsmr_sddmm.reorder.autotune import from_params
 
     csr = generate.powerlaw_graph(1024, avg_degree=12, seed=7)
     k = 32

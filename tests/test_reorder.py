@@ -5,17 +5,17 @@ correctness vs the golden model."""
 import numpy as np
 import pytest
 
-from sddmm_tpu import config
-from sddmm_tpu.data import generate
-from sddmm_tpu.data.sparse import COO
-from sddmm_tpu.ops.hybrid import HybridSDDMM, sddmm_hybrid
-from sddmm_tpu.ops.reference import sddmm_reference
-from sddmm_tpu.reorder.bsmr import BSMR, original_matrix_block_stats
-from sddmm_tpu.reorder.pack import pack
-from sddmm_tpu.reorder.rows import (dispersion_scores, row_encodings,
+from bsmr_sddmm import config
+from bsmr_sddmm.data import generate
+from bsmr_sddmm.data.sparse import COO
+from bsmr_sddmm.ops.hybrid import HybridSDDMM, sddmm_hybrid
+from bsmr_sddmm.ops.reference import sddmm_reference
+from bsmr_sddmm.reorder.bsmr import BSMR, original_matrix_block_stats
+from bsmr_sddmm.reorder.pack import pack
+from bsmr_sddmm.reorder.rows import (dispersion_scores, row_encodings,
                                     row_reordering)
-from sddmm_tpu.reorder import validate
-from sddmm_tpu.utils.check import check_values
+from bsmr_sddmm.reorder import validate
+from bsmr_sddmm.utils.check import check_values
 
 
 def test_row_encodings_and_dispersion():
@@ -123,7 +123,7 @@ def test_hybrid_random_matrix(small_random_csr):
 
 def test_hybrid_packed_order_roundtrip(clustered_csr):
     """Packed-order output gathered through inv_idx equals CSR order, and
-    to_csr_order (both strategies) agrees."""
+    the jitted conversion agrees."""
     k = 32
     a = generate.make_dense(clustered_csr.m, k, seed=1)
     b = generate.make_dense(k, clustered_csr.n, seed=2)
@@ -132,13 +132,11 @@ def test_hybrid_packed_order_roundtrip(clustered_csr):
     flat = np.asarray(runner.run_padded(a_pad, bt_pad, order="packed"))
     csr_vals = np.asarray(runner.run_padded(a_pad, bt_pad, order="csr"))
     np.testing.assert_array_equal(flat[runner.packed.inv_idx], csr_vals)
-    # both conversion strategies agree
-    from sddmm_tpu.ops.hybrid import _to_csr_order_jit
+    from bsmr_sddmm.ops.hybrid import _to_csr_order_jit
     import jax.numpy as jnp
-    sorted_vals = np.asarray(_to_csr_order_jit(
-        jnp.asarray(flat), runner._csr_dest, runner._inv_idx,
-        nnz=clustered_csr.nnz, strategy="sort"))
-    np.testing.assert_array_equal(sorted_vals, csr_vals)
+    np.testing.assert_array_equal(
+        np.asarray(_to_csr_order_jit(jnp.asarray(flat), runner._inv_idx)),
+        csr_vals)
     # packed metadata: real slots carry the right (row, col)
     pm = runner.packed
     rows_of = clustered_csr.row_indices()
@@ -185,7 +183,7 @@ def test_calibration_load_and_script(tmp_path):
     import subprocess
     import sys
 
-    from sddmm_tpu.reorder import autotune
+    from bsmr_sddmm.reorder import autotune
 
     out = tmp_path / "cal.json"
     r = subprocess.run(
@@ -203,8 +201,11 @@ def test_calibration_load_and_script(tmp_path):
         autotune.load_calibration(cal)
         assert autotune.STREAM_GBPS == cal["stream_gbps"]
         assert autotune._ROW_RATE_8MB[512] == cal["row_rate_8mb"]["512"]
+        # the split modes are priced from the bf16 rate (2 and 3 passes)
         assert autotune._DOT_G16_MS[("mixed", 16)] == \
-            autotune._DOT_G16_MS[("tf32", 16)]
+            autotune._DOT_G16_MS[("bfloat16", 16)] / 2.0
+        assert autotune._DOT_G16_MS[("float16", 16)] == \
+            autotune._DOT_G16_MS[("bfloat16", 16)] / 3.0
     finally:
         autotune.STREAM_GBPS = old_stream
         autotune._ROW_RATE_8MB.update(old_rates)
@@ -215,8 +216,8 @@ def test_bucket_merge_ratio_bounded():
     """Exact-first bucket merging must not pad small containers into a
     vastly larger bucket (review finding: a lone 128-chunk container
     must not swallow 1-chunk neighbors)."""
-    from sddmm_tpu.reorder.bsmr import BSMR
-    from sddmm_tpu.reorder.pack import pack
+    from bsmr_sddmm.reorder.bsmr import BSMR
+    from bsmr_sddmm.reorder.pack import pack
 
     # one very wide dense row-panel + several narrow ones
     rng = np.random.default_rng(5)
@@ -229,7 +230,7 @@ def test_bucket_merge_ratio_bounded():
             cols = np.arange(p * 64, p * 64 + 64)
             rows_l.append(np.full(len(cols), p * 16 + r))
             cols_l.append(cols)
-    from sddmm_tpu.data.sparse import COO
+    from bsmr_sddmm.data.sparse import COO
     rows = np.concatenate(rows_l); cols = np.concatenate(cols_l)
     csr = COO((96, 4096), rows, cols,
               np.ones(len(rows), np.float32)).to_csr()
@@ -241,11 +242,11 @@ def test_bucket_merge_ratio_bounded():
 
 
 def test_light_pack_skips_metadata_and_raises_on_csr_use():
-    from sddmm_tpu.data import generate
-    from sddmm_tpu.data.generate import make_dense
-    from sddmm_tpu.ops.hybrid import HybridSDDMM
-    from sddmm_tpu.reorder.bsmr import BSMR
-    from sddmm_tpu.reorder.pack import pack
+    from bsmr_sddmm.data import generate
+    from bsmr_sddmm.data.generate import make_dense
+    from bsmr_sddmm.ops.hybrid import HybridSDDMM
+    from bsmr_sddmm.reorder.bsmr import BSMR
+    from bsmr_sddmm.reorder.pack import pack
     csr = generate.block_clustered(10, 9, block_prob=0.35, seed=21)
     light = pack(csr, BSMR(0.3, 0.1, csr), full_metadata=False)
     full = pack(csr, BSMR(0.3, 0.1, csr))
@@ -270,32 +271,31 @@ def test_light_pack_skips_metadata_and_raises_on_csr_use():
 
 
 def test_route_by_cost(monkeypatch):
-    # cost-based clustering routing (VERDICT r3 next #7): cheap sample
-    # -> host greedy regardless of row count; expensive sample -> the
-    # accelerator path (or multi-leader host when no device is viable).
-    from sddmm_tpu.reorder import rows as rows_mod
+    # cost-based clustering routing: cheap sample -> host greedy
+    # regardless of row count; expensive sample -> the accelerator path
+    # (or multi-leader host when no device is viable).
+    from bsmr_sddmm.reorder import rows as rows_mod
 
     # fast sample on a big matrix: extrapolated host time under budget
     assert rows_mod._route_by_cost(1e-5, 500_000, 500_000, 4096) == \
         "greedy"
     # slow sample, device model cheaper than host estimate -> device
-    # (512 blocks: est_device ~103 s < est_host ~318 s native)
+    # (512 blocks: est_device ~11 s < est_host ~318 s native)
     monkeypatch.setattr(rows_mod, "_device_cluster_viable",
                         lambda m, b: True)
     assert rows_mod._route_by_cost(0.5, 200_000, 200_000, 512) == \
         "device"
-    # device model MORE expensive than host (4096 blocks: ~822 s) ->
-    # stay on native greedy even over budget (probes measured the
-    # device path 0.2-0.4x native greedy at m<=102k)
-    assert rows_mod._route_by_cost(0.5, 200_000, 200_000, 4096) == \
+    # device model MORE expensive than host (16384 blocks: ~362 s) ->
+    # stay on native greedy even over budget
+    assert rows_mod._route_by_cost(0.5, 200_000, 200_000, 16384) == \
         "greedy"
     # no native, no device -> the numpy multi-leader fallback
     monkeypatch.setattr(rows_mod, "_device_cluster_viable",
                         lambda m, b: False)
-    monkeypatch.setattr("sddmm_tpu.native.available", lambda: False)
+    monkeypatch.setattr("bsmr_sddmm.native.available", lambda: False)
     assert rows_mod._route_by_cost(0.5, 200_000, 200_000, 4096) == \
         "batched"
     # env override widens the budget back to host greedy
-    monkeypatch.setenv("SDDMM_TPU_HOST_CLUSTER_BUDGET_S", "1e9")
+    monkeypatch.setenv("BSMR_SDDMM_HOST_CLUSTER_BUDGET_S", "1e9")
     assert rows_mod._route_by_cost(0.5, 200_000, 200_000, 4096) == \
         "greedy"
